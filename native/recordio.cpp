@@ -1,6 +1,6 @@
 // recordio — native runtime IO for tamcmc-tpu.
 //
-// TPU-native equivalent of the reference's buffered binary sample writer
+// Native equivalent of the reference's buffered binary sample writer
 // (`outputs.cpp` [U], SURVEY.md section 2 "Outputs") and of its ASCII
 // spectrum reader (`string_handler.cpp`/`data.h` [U]).  The hot MCMC loop
 // streams thinned sample blocks from device to host; this library makes the

@@ -1,12 +1,12 @@
-"""tamcmc_tpu — TPU-native asteroseismic peak-bagging MCMC engine.
+"""tamcmc_tpu — asteroseismic peak-bagging MCMC engine in JAX, for NVIDIA GPUs.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the C++ reference
+A ground-up JAX/XLA rebuild of the capabilities of the C++ reference
 OthmanB/TAMCMC-C- (adaptive truncated-drift MALA + parallel tempering over
 Lorentzian-mode + Harvey-noise power-spectrum models with a chi^2(2 d.o.f.)
 spectral likelihood).  See SURVEY.md at the repo root for the layer map this
 package implements and for the provenance caveats on reference citations.
 
-Layout (mirrors SURVEY.md section 1's layers, redesigned TPU-first):
+Layout (mirrors SURVEY.md section 1's layers, redesigned as batched array programs for XLA):
   ops/         L1 spectrum-model kernels (Lorentzian, rotation, noise, Alm, ARMM)
   models/      L2 model library (registry of pure jnp model functions)
   stats/       L3 likelihoods and prior tables

@@ -1,7 +1,7 @@
 """Effective sample size via integrated autocorrelation time.
 
 The headline throughput metric of the rebuild is effective-samples/s/chip
-(BASELINE.md); the reference has no equivalent (console acceptance prints
+(PERF.md); the reference has no equivalent (console acceptance prints
 only — SURVEY.md section 5.1).  Host-side numpy: runs on thinned chains after
 device_get, never in the hot path.
 

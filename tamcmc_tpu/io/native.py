@@ -1,7 +1,9 @@
 """ctypes bindings for the native C++ IO runtime (native/recordio.cpp).
 
-Builds on demand (make -C native) and degrades gracefully to the pure-python
-paths in outputs.py / data.py when no compiler is available.
+Built on first use by `make -C native`, every time, so the loaded library is
+always the committed recordio.cpp's (make rebuilds only when the source is
+newer than the .so).  Degrades gracefully to the pure-python paths in
+outputs.py / data.py when the build fails or no compiler is available.
 """
 
 from __future__ import annotations
@@ -24,12 +26,11 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _LIB_PATH.exists():
-        try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    try:
+        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+                       capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
     except OSError:

@@ -137,8 +137,13 @@ class OutputWriter:
         self._chain_buffers[phase] = []
         pp = self._partial_path(phase)
         if self.keep_chains and pp.exists():
+            # a crash between save_partial and the checkpoint leaves chain
+            # records past the checkpoint: keep the checkpointed emits only
+            per_emit = (self.walker_slice[1] - self.walker_slice[0]
+                        if self.walker_slice else self.n_chains)
+            n_emit = n_records // per_emit
             z = np.load(pp)
-            buf = {k: z[k] for k in z.files if k != "__count__"}
+            buf = {k: z[k][:n_emit] for k in z.files if k != "__count__"}
             if buf:
                 self._chain_buffers[phase].append(buf)
 

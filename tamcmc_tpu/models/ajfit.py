@@ -15,7 +15,7 @@ peak-bagging posterior) with Gaussian uncertainties; the model predicts
 and the likelihood is the per-point-sigma Gaussian chi_square
 (`stats/likelihoods.py`), NOT the spectral chi^2(2 d.o.f.).
 
-TPU-first design: the (l, m) structure is fully static — multiplets are
+Design for XLA: the (l, m) structure is fully static — multiplets are
 grouped by degree at trace time, each group's prediction is one vectorised
 `split_frequencies_aj` call, and the data vector is a flat static
 concatenation (m = -l..l within each multiplet, multiplets in spec order).

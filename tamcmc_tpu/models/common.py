@@ -7,7 +7,7 @@ l=0 profile, heights additionally scaled by the sampled visibility V^2_l, and
 the (2l+1) azimuthal components are weighted by inclination visibilities and
 split by the rotation law.
 
-TPU-first: component counts are static (ncomp = sum_l N_l*(2l+1)); assembly
+Design for XLA: component counts are static (ncomp = sum_l N_l*(2l+1)); assembly
 produces flat (ncomp,) arrays feeding one dense Lorentzian contraction.
 """
 

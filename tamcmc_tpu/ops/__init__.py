@@ -1,6 +1,6 @@
 """L1 spectrum-model kernels (pure jnp, differentiable, jit/vmap-safe).
 
-TPU-first design notes (vs the C++ reference, SURVEY.md section 2):
+Design notes for XLA (vs the C++ reference, SURVEY.md section 2):
   * the reference evaluates each Lorentzian only inside a truncation window
     c*Gamma around the mode (data-dependent control flow).  Here every mode is
     evaluated densely on the full frequency grid and accumulated with one

@@ -9,7 +9,7 @@ Mosser et al. 2012, A&A 540, A143)
     theta_p = pi * (nu / Dnu - eps_p)
     theta_g = pi * (1e6 / (DPi1 * nu) - eps_g)      [nu in uHz, DPi1 in s]
 
-TPU-first redesign of the root finding: between any two consecutive poles of
+Redesign of the root finding for static shapes: between any two consecutive poles of
 either tangent, f(nu) = tan(theta_p) - q*tan(theta_g) is strictly increasing
 (f' = pi/Dnu sec^2(theta_p) + q * pi*1e6/(DPi1 nu^2) sec^2(theta_g) > 0) and
 sweeps -inf -> +inf, so each inter-pole interval holds EXACTLY one mixed

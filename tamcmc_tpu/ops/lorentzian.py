@@ -3,7 +3,7 @@
 Reference equivalent: `build_lorentzian.cpp — optimum_lorentzian_calc_*` [U]
 (SURVEY.md section 2).  The reference evaluates each Lorentzian only inside a
 truncation window c*Gamma around its centre (data-dependent loop bounds).
-TPU-first redesign: every azimuthal component is evaluated *densely* on the
+Redesign for XLA: every azimuthal component is evaluated *densely* on the
 full static frequency grid and all components are accumulated in one
 contraction — no data-dependent shapes, fully fusable by XLA, batched over
 (temperature, chain) by vmap.
@@ -13,7 +13,7 @@ Profile (with Nigam & Kosovichev 1998-style asymmetry `b`):
     L(nu) = H * [(1 + b*x)^2 + b^2] / (1 + x^2)
 b = 0 recovers the symmetric Lorentzian H / (1 + x^2).
 
-Performance design (measured on TPU v5e, see git history):
+Performance design:
 
 * **Factored algebra.** Expanding the numerator, (1+bx)^2 + b^2 =
   1 + 2bx + b^2(1 + x^2), so
@@ -22,9 +22,7 @@ Performance design (measured on TPU v5e, see git history):
   into the accumulator once — and the remaining per-bin work is one
   multiply for x (2/Gamma precomputed per component), one fma for 1+x^2,
   one reciprocal, one fma, one accumulate.  This removes one full division
-  and the squaring from the naive form (divisions lower to multi-op
-  reciprocal-refine sequences on the TPU VPU — they dominated the old
-  kernel's cycle count).
+  and the squaring from the naive form.
 
 * **No scan.** The (ncomp x N) broadcast is left to XLA as one fused
   loop+reduction; a `lax.scan` over component blocks (earlier design) paid
@@ -50,22 +48,19 @@ _CHUNK = 64   # components per unrolled chunk; bounds live (chunk, N) temps
 
 _WFLOOR = 1e-6
 
-# --- measured-lever switches (round-2 VERDICT item 2 prescriptions, A/B'd
-# in round 4 — tools/ab_step.py; results in BASELINE.md) ---
+# --- lever switches (A/B with tools/ab_step.py) ---
 # TAMCMC_VJP_STORE_INV=1: save the forward's per-chunk inv=(1+x^2)^-1 as a
-# VJP residual instead of recomputing it in the backward.  Roofline
-# prediction: a LOSS on TPU — the stored (comp, N)-batched residual costs a
-# full HBM round trip (~2x 4B/comp-bin) where the recompute costs ~5 issue
-# ops/comp-bin (~6x cheaper at the measured issue rate vs bandwidth).
+# VJP residual instead of recomputing it in the backward: the stored
+# (comp, N)-batched residual costs a device-memory round trip (~2x 4B per
+# comp-bin) where the recompute costs a few arithmetic ops per comp-bin.
 _STORE_INV = os.environ.get("TAMCMC_VJP_STORE_INV", "") == "1"
 # TAMCMC_LORENTZ_BF16=1 (or set_profile_precision("bf16")): do the
 # per-(comp, bin) profile arithmetic in bfloat16 with f32 accumulation.
 # x is computed in f32 FIRST (the grid offset nu - c needs ~1e-5 relative
 # precision at uHz scales; bf16's 8-bit mantissa would quantise mode
 # positions by ~0.4%) and only the inv/multiply stream is bf16.
-# MEASURED (2026-08-21, TPU v5e, bench config): 6.52 -> 5.33 ms/step
-# (+22% steps/s); posterior-validated vs f32 on BASELINE configs 1-3 with
-# the parity harness (tools/validate_bf16.py; record in BASELINE.md).
+# Posterior-validated vs f32 on BASELINE configs 1-3 with the parity
+# harness (tools/validate_bf16.py); its speed on the GPU is not measured yet.
 _BF16 = os.environ.get("TAMCMC_LORENTZ_BF16", "") == "1"
 # set on the first trace of the profile kernels: compiled programs bake the
 # precision in, so flipping it afterwards would silently mix precisions via
@@ -76,7 +71,7 @@ _TRACED = False
 
 def set_profile_precision(precision: str):
     """Select the Lorentzian profile-stream precision: "f32" (default) or
-    "bf16" (+22% measured step throughput, ~0.4%-quantised profile values,
+    "bf16" (~0.4%-quantised profile values, f32 accumulation,
     posterior-validated — the user-facing switch behind
     `tamcmc run --precision bf16`).
 
@@ -264,9 +259,7 @@ sum_lorentzians.defvjp(_fwd, _bwd)
 # dense (untruncated) evaluation.
 #
 # Shape-generic over leading batch dims: params (..., NC), nu (N,) ->
-# (..., N).  This is the jnp reference path; the TPU Pallas kernel in
-# ops/pallas_lorentzian.py implements identical semantics with tile-level
-# window SKIPPING (data-dependent time, static shapes).
+# (..., N).
 
 def _trunc_fwd_impl(nu, heights, nu0s, widths, asyms, windows):
     w = jnp.maximum(widths, _WFLOOR)
@@ -359,7 +352,7 @@ sum_lorentzians_trunc.defvjp(_trunc_fwd, _trunc_bwd)
 
 # ---------------------------------------------------------------------------
 # Static-window grouped accumulation — the reference's truncation ALGORITHM
-# (skip the work, not just the value) with TPU-static shapes
+# (skip the work, not just the value) with static shapes
 # ---------------------------------------------------------------------------
 #
 # The masked variant above reproduces the reference's truncation *semantics*
@@ -376,7 +369,7 @@ sum_lorentzians_trunc.defvjp(_trunc_fwd, _trunc_bwd)
 
 def make_static_window_groups(centers, halfwidths, nu_start, nu_step,
                               n_bins, group_size: int = None,
-                              new_group_cost_bins: int = 512):
+                              new_group_cost_bins: int = None):
     """Host-side: static component groups for sum_lorentzians_grouped.
 
     centers/halfwidths: numpy (ncomp,) — TRACE-TIME estimates (from params0);
@@ -389,19 +382,22 @@ def make_static_window_groups(centers, halfwidths, nu_start, nu_step,
     Grouping is COST-AWARE by default: walking the centers in sorted order,
     a component joins the current group only if that costs fewer
     (component x bin) evaluations than opening a new group — i.e.
-    (n+1) * union_bins vs n * current_bins + own_bins + new_group_cost_bins,
-    where new_group_cost_bins charges the extra accumulator slice-add a new
-    group implies.  On the config-3 bench shapes this packs each (n, l)
-    multiplet into its own tight slice instead of unioning ~8 neighbours
-    across an order (the previous fixed-stride grouping), cutting comp-bin
-    work a further ~1.6x on top of the original windowing win.  Pass
-    `group_size` for the legacy fixed-stride behaviour (kept for A/Bs);
-    either way groups never exceed the kernel's unroll chunk.
+    (n+1) * union_bins vs n * current_bins + own_bins + new_group_cost_bins.
+    A group becomes its own kernels (forward, backward, likelihood piece)
+    with their launches and their compile time, so by default a new group
+    costs as much as one more component over the whole grid
+    (new_group_cost_bins = n_bins).  On config 4 (120,000 bins) that gives
+    ~10 segments instead of the ~200 a fixed 512-bin charge gave: the GPU
+    compile of ~200 segments ran past 15 minutes.  Pass `group_size` for
+    the legacy fixed-stride behaviour (kept for A/Bs); either way groups
+    never exceed the kernel's unroll chunk.
     """
     import numpy as np
     centers = np.asarray(centers, dtype=np.float64)
     halfwidths = np.asarray(halfwidths, dtype=np.float64)
     order = np.argsort(centers)
+    if new_group_cost_bins is None:
+        new_group_cost_bins = n_bins
 
     def _bins(lo_f, hi_f):
         lo = int(np.clip(np.floor((lo_f - nu_start) / nu_step), 0, n_bins))
@@ -451,9 +447,8 @@ def sum_lorentzians_grouped(nu, heights, nu0s, widths, asyms, groups):
     NOTE (perf): the per-group `at[].add` chain below is fine in a
     standalone jit, but inside a `lax.scan` body XLA fails to alias the
     dynamic-update-slices in place and each group update copies the FULL
-    (batch, N) accumulator — measured 3 ms/step of pure copy traffic on the
-    config-3 bench (forward model eval: 0.35 ms isolated vs 3.3 ms
-    in-scan).  The hot path therefore uses partition_window_groups +
+    (batch, N) accumulator, which multiplied the in-scan forward cost
+    several times over.  The hot path therefore uses partition_window_groups +
     sum_lorentzians_segments (disjoint slices, output built by ONE concat —
     no scatter at all); this function remains the overlap-tolerant
     reference implementation for tests and A/Bs.
@@ -510,9 +505,8 @@ def sum_lorentzians_segments(nu, heights, nu0s, widths, asyms, segments):
     Inside a `lax.scan` body this writes each (batch, seg_bins) piece into
     the output exactly once; the grouped at[].add chain instead copies the
     full accumulator per group (XLA in-place aliasing fails across
-    dynamic-update-slice chains in while-loop bodies) — 10x forward-step
-    cost on the config-3 bench shapes.  Zero-filled gaps are unbatched
-    constants under vmap."""
+    dynamic-update-slice chains in while-loop bodies).  Zero-filled gaps
+    are unbatched constants under vmap."""
     N = nu.shape[0]
     pieces, pos = [], 0
     for lo, hi, seg in segment_values(nu, heights, nu0s, widths, asyms,

@@ -17,12 +17,13 @@ Two parametrisations, matching the reference model families
       Gram-Schmidt over the discrete grid m = -l..l (static per l, so this
       is host-side numpy — zero device cost).
 
-TPU notes: splitting produces per-(mode, m) center frequencies as a static
+XLA notes: splitting produces per-(mode, m) center frequencies as a static
 (ncomp,) array feeding the dense Lorentzian contraction; everything is
 differentiable in (a1, a3, ..., asphericity).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -94,7 +95,9 @@ def split_frequencies_aj(l: int, nu_nl, aj_coeffs):
     """
     polys = jnp.asarray(rl_polynomials(l, 6), dtype=jnp.float32)  # (6, 2l+1)
     nu = jnp.asarray(nu_nl)[..., None]
-    shift = jnp.einsum("...j,jm->...m", jnp.asarray(aj_coeffs), polys)
+    # full f32: a TF32 product (GPU default) would quantise the splitting
+    shift = jnp.einsum("...j,jm->...m", jnp.asarray(aj_coeffs), polys,
+                       precision=jax.lax.Precision.HIGHEST)
     return nu + shift
 
 

@@ -9,7 +9,7 @@ Closed forms are the squared associated-Legendre ratios
 Reference equivalent: `function_rot.cpp — amplitude_ratio` [U]
 (SURVEY.md section 2, "Rotation/splitting & visibilities").
 
-TPU notes: pure closed-form jnp; differentiable in i (inclination is a
+XLA notes: pure closed-form jnp; differentiable in i (inclination is a
 sampled parameter); evaluated per-mode and broadcast over the frequency grid.
 """
 

@@ -17,7 +17,7 @@ i.e. a power law in nu with a Lorentzian-in-log-frequency "dip" of depth
 dGamma_dip (>1 suppresses width near nu_dip ~ numax) and log-width set by
 W_dip.
 
-TPU notes: pure closed-form jnp, differentiable in every parameter; the
+XLA notes: pure closed-form jnp, differentiable in every parameter; the
 relation is evaluated on the (static-shape) l=0 mode-frequency vector, so it
 adds O(N0) flops — negligible next to the Lorentzian contraction.
 """

@@ -2,7 +2,8 @@
 
 SURVEY.md section 5.8: the reference has NO distributed backend (one C++
 process, serial chain loop).  The rebuild's story is JAX collectives over a
-mesh whose axes span hosts: ICI within a slice, DCN across slices.  This
+mesh whose axes span hosts: the fast intra-host links (NVLink) within a
+host, the network across hosts.  This
 module is the thin, testable bring-up layer:
 
   * `init_distributed(...)` — idempotent wrapper around
@@ -12,8 +13,9 @@ module is the thin, testable bring-up layer:
     tests/test_distributed.py).
   * `make_global_sampler_mesh(...)` — builds the (temp, chain) mesh from
     jax.devices() (ALL processes' devices), keeping each temperature rung's
-    walkers on one host where possible so adaptation reductions stay on ICI
-    and only the (rare, dN_mixing-amortised) tempering swaps cross DCN.
+    walkers on one host where possible so adaptation reductions stay inside
+    a host and only the (rare, dN_mixing-amortised) tempering swaps cross
+    the network.
 
 Everything downstream (parallel/sharded.py) is process-count agnostic:
 jit + NamedSharding handle multi-host global arrays natively.
@@ -68,8 +70,8 @@ def make_global_sampler_mesh(n_temp_shards: int,
 
     Device order: jax.devices() groups by process; we lay temperatures over
     the slowest-varying (cross-host) dimension so each rung's walker shards
-    are host-local — adaptation psums ride ICI, only temp-axis swap
-    permutes cross DCN (and only every dN_mixing steps).
+    are host-local — adaptation psums stay inside a host, only temp-axis
+    swap permutes cross the network (and only every dN_mixing steps).
     """
     devices = jax.devices()
     need = n_temp_shards * n_chain_shards

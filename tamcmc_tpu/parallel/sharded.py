@@ -8,12 +8,12 @@ identical step with NamedShardings pinned on inputs and outputs and let XLA
 GSPMD lower
 
   * the tempering-swap gather  x[partner]  on the 'temp' axis to a
-    collective-permute between neighbouring rungs over ICI,
+    collective-permute between neighbouring rungs,
   * the walker means/einsums on the 'chain' axis to psum reductions,
 
 exactly the plan of SURVEY.md section 5.8.  Multi-host extension: call
 `jax.distributed.initialize()` before building the mesh — the same code
-lowers ICI collectives within a slice and DCN across hosts.
+lowers collectives within a host (NVLink) and across hosts.
 
 (An explicit shard_map + ppermute implementation is the planned perf
 fallback if GSPMD's choices prove suboptimal; profile first.)
@@ -44,18 +44,19 @@ def make_sharded_phase_runner(problem, hp, betas, mesh, adapt: bool,
     mesh layout; outputs are emitted with the cold rung fully replicated
     (small host-bound records).
     """
-    raw = _raw_step(problem, hp, betas, adapt)
     sh = state_shardings(mesh)
     rep = NamedSharding(mesh, P())
 
     from tamcmc_tpu.sampler.driver import make_record
 
-    def super_step(state, key):
-        keys = jax.random.split(key, thin)
-        state, _ = jax.lax.scan(raw, state, keys)
-        return state, make_record(state)
+    def run(data, state, key):
+        raw = _raw_step(problem.with_data(data), hp, betas, adapt)
 
-    def run(state, key):
+        def super_step(state, key):
+            keys = jax.random.split(key, thin)
+            state, _ = jax.lax.scan(raw, state, keys)
+            return state, make_record(state)
+
         keys = jax.random.split(key, n_emit)
         return jax.lax.scan(super_step, state, keys)
 
@@ -69,10 +70,15 @@ def make_sharded_phase_runner(problem, hp, betas, mesh, adapt: bool,
         "logP0": rep, "log_sigma": rep, "acc_rate": rep, "mu0": rep,
         "cov_diag0": rep, "swap_att": rep, "swap_acc": rep,
     }
-    return jax.jit(run,
-                   in_shardings=(sh, rep),
-                   out_shardings=(sh, out_record_sh),
-                   donate_argnums=(0,))
+    # the problem's data arrays are replicated arguments (Problem.data)
+    jitted = jax.jit(run,
+                     in_shardings=(rep, sh, rep),
+                     out_shardings=(sh, out_record_sh),
+                     donate_argnums=(1,))
+    # host copies: a multi-process mesh takes replicated host values where
+    # a process-local device array would not be a global array
+    data = {k: np.asarray(v) for k, v in problem.data().items()}
+    return lambda state, key: jitted(data, state, key)
 
 
 def gather_state_to_host(state):

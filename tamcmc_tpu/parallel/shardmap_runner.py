@@ -30,6 +30,7 @@ subsystem's obligations.
 
 from __future__ import annotations
 
+import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
@@ -134,7 +135,8 @@ def make_shardmap_phase_runner(problem, hp, betas, mesh, adapt: bool,
     def cmean(x, axis, keepdims=False):
         return lax.pmean(jnp.mean(x, axis=axis, keepdims=keepdims), "chain")
 
-    def body(betas_g, state, key):
+    def body(data, betas_g, state, key):
+        prob = problem.with_data(data)
         t_loc = state.theta.shape[0]
         c_loc = state.theta.shape[1]
         Df = state.theta.shape[2]
@@ -155,7 +157,7 @@ def make_shardmap_phase_runner(problem, hp, betas, mesh, adapt: bool,
         def raw(state, step_key):
             xi, u_acc, u_swap = _fold_draws(
                 step_key, tg, cg, T_global, C_global, Df, state.theta.dtype)
-            state = mala_step(problem, hp_res, betas_loc, state, None,
+            state = mala_step(prob, hp_res, betas_loc, state, None,
                               adapt=adapt, draws=(xi, u_acc),
                               axis_reduce=cmean)
             do_swap = (state.step % hp.dN_mixing) == 0
@@ -220,11 +222,16 @@ def make_shardmap_phase_runner(problem, hp, betas, mesh, adapt: bool,
     smapped = jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(P("temp"), sspec, P()),
+        in_specs=(P(), P("temp"), sspec, P()),
         out_specs=(sspec, rec_specs),
         check_vma=True)
 
-    def run(state, key):
-        return smapped(betas, state, key)
+    def run(data, state, key):
+        return smapped(data, betas, state, key)
 
-    return jax.jit(run, donate_argnums=(0,))
+    # the problem's data arrays are replicated arguments (Problem.data)
+    jitted = jax.jit(run, donate_argnums=(1,))
+    # host copies: a multi-process mesh takes replicated host values where
+    # a process-local device array would not be a global array
+    data = {k: np.asarray(v) for k, v in problem.data().items()}
+    return lambda state, key: jitted(data, state, key)

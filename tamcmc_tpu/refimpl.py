@@ -1,7 +1,7 @@
 """Sequential NumPy reference implementation — the measurable baseline proxy.
 
 The C++ reference could not be built this round (empty mount — SURVEY.md
-provenance note), and it publishes no benchmark numbers (BASELINE.md), so
+provenance note), and it publishes no benchmark numbers, so
 bench.py anchors its `vs_baseline` ratio against this faithful architectural
 emulation of the C++ sampler: ONE process, ONE walker per temperature,
 temperatures stepped SEQUENTIALLY in a Python loop per iteration
@@ -11,7 +11,7 @@ Metropolis (the reference's default operating mode) with the same
 Robbins-Monro adaptation constants as the JAX sampler.
 
 This is a *proxy*: when the real cpptamcmc becomes buildable its measured
-throughput replaces this baseline (BASELINE.md row 2).
+throughput replaces this baseline.
 """
 
 from __future__ import annotations

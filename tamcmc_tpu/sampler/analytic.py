@@ -17,6 +17,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+# a reference target: its products stay full f32 on every backend
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @dataclasses.dataclass(frozen=True)
 class AnalyticProblem:
@@ -44,6 +47,12 @@ class AnalyticProblem:
 
     def extract(self, full):
         return full
+
+    def data(self) -> dict:
+        return {}
+
+    def with_data(self, data: dict) -> "AnalyticProblem":
+        return self
 
     def embed(self, x):
         return x
@@ -77,7 +86,8 @@ def correlated_gaussian(cov: np.ndarray) -> AnalyticProblem:
     P = jnp.asarray(prec, dtype=jnp.float32)
     d = cov.shape[0]
     return AnalyticProblem(
-        logpdf=lambda x: -0.5 * x @ (P @ x),
+        logpdf=lambda x: -0.5 * jnp.dot(
+            x, jnp.dot(P, x, precision=_HIGHEST), precision=_HIGHEST),
         ndim=d, x0=np.zeros(d))
 
 

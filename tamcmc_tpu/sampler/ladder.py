@@ -19,7 +19,8 @@ is only Markovian with a fixed kernel; adaptation during acquisition
 would bias the posterior just like proposal adaptation would).
 
 Enable with `tamcmc run --adapt-ladder` (MALAHyper.adapt_ladder).  A/B
-records vs the static ladder live in BASELINE.md "Round 5".
+against the static ladder: tools/ab_ladder.py (off by default: its earlier
+A/B was inside estimator noise).
 """
 
 from __future__ import annotations

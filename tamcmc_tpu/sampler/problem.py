@@ -62,6 +62,23 @@ class Problem:
             self, nu=c(self.nu), spec=c(self.spec), params0=c(self.params0),
             sigma_spec=c(self.sigma_spec), mask=c(self.mask))
 
+    # ---- data arrays as jit arguments ----
+    def data(self) -> dict:
+        """The grid-sized arrays (nu, spec, sigma_spec, mask) that are set.
+
+        Jitted programs take these as ARGUMENTS (`with_data` inside the
+        traced function) instead of closing over them: a closed-over array
+        is a compile-time constant, XLA constant-folds the slices and
+        fixed-parameter pieces derived from it into dozens of grid-sized
+        constants, and the GPU backend embeds each in the generated code —
+        compiles of the full-width models then ran for many minutes."""
+        return {k: v for k, v in (("nu", self.nu), ("spec", self.spec),
+                                  ("sigma_spec", self.sigma_spec),
+                                  ("mask", self.mask)) if v is not None}
+
+    def with_data(self, data: dict) -> "Problem":
+        return dataclasses.replace(self, **data)
+
     # ---- free-subspace machinery (static) ----
     @property
     def free_idx(self) -> np.ndarray:
@@ -189,7 +206,7 @@ class Problem:
         never touches the model/grid, so its grad is a closed-form Df-sized
         computation, and the expensive model+likelihood graph is traversed
         backward exactly ONCE (a naive joint vjp paid two full model
-        backward passes — measured 1.5x step cost on TPU v5e).
+        backward passes).
         Returns ((logL, logP), (gradL, gradP))."""
         logL, gradL = jax.value_and_grad(self._logL_only)(x)
         logP, gradP = jax.value_and_grad(self._logP_only)(x)

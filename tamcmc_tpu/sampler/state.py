@@ -2,7 +2,7 @@
 
 Reference equivalent: the mutable per-chain members of `MALA`/`Model_def`
 (`MALA.h`, `model_def.h` [U]; SURVEY.md section 2 "Adaptive MALA sampler").
-TPU-first redesign: ALL tempered chains and walkers live as leading array
+Redesign for XLA: ALL tempered chains and walkers live as leading array
 axes (T = temperatures, C = walkers per temperature, Df = free dims) of one
 immutable pytree carried through `lax.scan`.
 
@@ -34,13 +34,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
-import flax.struct
 
 from tamcmc_tpu.utils.constants import TARGET_ACCEPTANCE
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class SamplerState:
     theta: jnp.ndarray       # (T, C, Df) positions in STANDARDIZED u-space
     logL: jnp.ndarray        # (T, C) untempered log-likelihood
@@ -52,8 +53,8 @@ class SamplerState:
     chol: jnp.ndarray        # (T, C, Df, Df) cholesky(cov + eps I)
     ichol: jnp.ndarray       # (T, C, Df, Df) inv(chol), refreshed with it:
                              # turns the per-step reverse-kernel triangular
-                             # solve (Df sequential substitution steps —
-                             # latency-poison on TPU) into one batched
+                             # solve (Df sequential substitution steps, a
+                             # latency-bound chain) into one batched
                              # matvec; zeros in RW mode (never read)
     log_sigma: jnp.ndarray   # (T, C) per-walker adaptive scale (log)
     step: jnp.ndarray        # () global iteration counter (adaptation clock)
@@ -66,6 +67,9 @@ class SamplerState:
                              # (cov floor; ones for standardized problems)
     u_center: jnp.ndarray    # (Df,) physical = u_center + u_scale * theta
     u_scale: jnp.ndarray     # (Df,) prior-derived standardization scales
+
+    def replace(self, **fields) -> "SamplerState":
+        return dataclasses.replace(self, **fields)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +115,8 @@ class MALAHyper:
     gain_alpha: float = 0.6
     eps_cov: float = 1e-8           # ridge added before cholesky
     dN_chol: int = 10               # refresh chol(Sigma) every K adapt steps:
-                                    # small-matrix Cholesky is latency-bound
-                                    # on TPU; mu/Sigma still update every step
+                                    # small-matrix Cholesky is latency-bound;
+                                    # mu/Sigma still update every step
     log_sigma_min: float = -15.0    # Atchade projection bounds on the scale
     log_sigma_max: float = 4.0
     sigma0_scale: float = 1.0       # initial sigma = 2.38/sqrt(Df) * this

@@ -4,7 +4,7 @@ Reference equivalent: `MALA::parallel_tempering` (`MALA.cpp` [U]; SURVEY.md
 sections 2, 3.5): every dN_mixing iterations propose adjacent-pair swaps,
 accept with min(1, exp[(beta_i - beta_j)(logL_j - logL_i)]).
 
-TPU-first redesign: all rungs live on a leading T axis; a swap event applies
+Redesign for XLA: all rungs live on a leading T axis; a swap event applies
 an even/odd-parity sweep of ALL adjacent pairs at once (deterministic
 alternation — a superset of the reference's one-pair-per-event policy with
 identical invariant distribution).  Swaps are static-partner gathers along T,

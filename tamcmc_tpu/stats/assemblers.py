@@ -10,7 +10,7 @@ positive.  Without these, a tempered walker can propose a frequency-crossed
 state whose per-param priors are all individually satisfied — and the
 posterior silently multi-modalises over permutations.
 
-TPU-first design: each constraint is a pure `fn(full_params) -> scalar`
+Design for XLA: each constraint is a pure `fn(full_params) -> scalar`
 returning 0.0 when satisfied and NEG_BIG per violation (the same
 finite -inf convention as the prior table, so autodiff through the MH accept
 stays NaN-free; gradients of a violated hard constraint are zero and the

@@ -9,7 +9,7 @@ chi^2 with 2 d.o.f. (raw periodogram, exponentially distributed bins):
 Gaussian chi^2 (averaged spectra with per-bin sigma):
     logL = -0.5 * sum_i ((S_i - M_i)/sigma_i)^2
 
-TPU notes: this is THE hot reduction; it is kept as a pure jnp one-liner so
+XLA notes: this is THE hot reduction; it is kept as a pure jnp one-liner so
 XLA fuses it with the model evaluation into a single kernel (SURVEY.md
 section 2 called for exactly this fusion).  Reductions are chunked pairwise
 by XLA (tree reduction), keeping f32 accumulation error ~sqrt(log N)*eps.

@@ -5,7 +5,7 @@ Gaussian, Jeffreys (modified, with knee), Uniform-Gaussian, Gaussian-Uniform-
 Gaussian (GUG), Fix, Auto; family assemblers add cross-parameter constraints
 [U] (SURVEY.md section 2 "Priors").
 
-TPU-first redesign: instead of per-parameter string dispatch inside the hot
+Redesign for XLA: instead of per-parameter string dispatch inside the hot
 loop, the prior is compiled to a static table — an int kind-code and a (4,)
 hyperparameter row per parameter — evaluated branch-free with `lax.switch`
 under `vmap`.  Out-of-support returns a large negative constant (not -inf) so

@@ -68,6 +68,16 @@ class TestRun:
         assert all(p["steps_per_s"] > 0 for p in phases)
         assert all(len(p["swap_rates"]) == 1 for p in phases)  # T=2 -> 1 pair
 
+    def test_metrics_record_the_device(self, fit_dir):
+        import jax
+        lines = [json.loads(l) for l in open(fit_dir / "metrics.jsonl")]
+        start = next(l for l in lines if l["event"] == "run_start")
+        assert start["backend"] == jax.default_backend() == "cpu"
+        assert start["device_kind"] == jax.devices()[0].device_kind
+        assert start["devices"] == len(jax.devices())
+        ends = [l for l in lines if l["event"] == "phase_end"]
+        assert all(e["carry_platforms"] == ["cpu"] for e in ends)
+
     def test_resume_skips_done_phases(self, fit_dir, capsys):
         run_cli(["run", "--demo", "single_lorentzian", "--outdir", str(fit_dir),
                  "--burnin", "100", "--learning", "300", "--acquire", "300",
@@ -255,3 +265,19 @@ class TestPeriodicReport:
         events = [_json.loads(l)["event"]
                   for l in open(out / "metrics.jsonl")]
         assert "inrun_report" in events
+
+
+class TestReportOptional:
+    def test_run_without_matplotlib_skips_the_report(self, tmp_path,
+                                                      monkeypatch, capsys):
+        """matplotlib is an optional extra: without it the fit finishes and
+        says once that the report was skipped."""
+        monkeypatch.setitem(sys.modules, "matplotlib", None)  # import fails
+        out = tmp_path / "fit"
+        run_cli(["run", "--demo", "single_lorentzian", "--outdir", str(out),
+                 "--burnin", "20", "--learning", "20", "--acquire", "40",
+                 "--thin", "4", "--temps", "2", "--chains", "2"])
+        err = capsys.readouterr().err
+        assert err.count("report skipped") == 1
+        assert (out / "summary.json").exists()
+        assert not list(out.glob("*.png"))

@@ -1,7 +1,7 @@
 """Two-process localhost jax.distributed harness (SURVEY.md section 4,
 test-ladder item 4): the FULL sharded sampler step — MALA + tempering-swap
 permutes + adaptation reductions — runs over a mesh spanning two OS
-processes, with gloo CPU collectives standing in for DCN.
+processes, with gloo CPU collectives standing in for the inter-host network.
 
 The workers live in tests/dist_worker.py; this launcher exercises the same
 env-var contract (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /

@@ -92,6 +92,34 @@ class TestOutputs:
         assert z["logL"].shape == (15, 2, 4)
 
 
+    def test_resume_drops_chain_records_past_the_checkpoint(self, tmp_path):
+        """A crash after save_partial but before the checkpoint leaves
+        chain records past it; the resumed phase keeps the checkpointed
+        emits only, so samples and chain arrays stay aligned."""
+        rng = np.random.default_rng(1)
+
+        def chunk(E):
+            return {"theta0": rng.normal(size=(E, 4, 3)),
+                    "logL": rng.normal(size=(E, 2, 4))}
+
+        w = OutputWriter(str(tmp_path), ["a", "b", "c"], n_temps=2,
+                         n_chains=4)
+        w.append_chunk("A", chunk(2))
+        w.save_partial("A")             # checkpoint taken here: 2 emits
+        w.append_chunk("A", chunk(2))
+        w.save_partial("A")             # ... crash before its checkpoint
+        w.abort()
+        w2 = OutputWriter(str(tmp_path), ["a", "b", "c"], n_temps=2,
+                          n_chains=4)
+        w2.resume_phase("A", 2 * 4)
+        w2.append_chunk("A", chunk(1))
+        w2.close()
+        samples, _ = read_bin_samples(str(tmp_path), "A")
+        z = np.load(tmp_path / "A_chains.npz")
+        assert samples.shape[0] == 3 * 4
+        assert z["logL"].shape == (3, 2, 4)
+
+
 class TestCheckpoint:
     def test_roundtrip_and_bitwise_resume(self, tmp_path):
         from tamcmc_tpu.sampler import (init_state, MALAHyper, mala_step,

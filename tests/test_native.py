@@ -1,4 +1,8 @@
 """Native C++ IO runtime tests (skipped when no compiler/lib available)."""
+import os
+import pathlib
+import shutil
+
 import numpy as np
 import pytest
 
@@ -55,3 +59,29 @@ class TestNativeAsciiReader:
         write_spectrum(str(tmp_path / "s.data"), nu, pw)
         d = read_spectrum(str(tmp_path / "s.data"))
         np.testing.assert_allclose(d["nu"], nu, rtol=1e-12)
+
+
+class TestNativeBuild:
+    def test_load_rebuilds_a_stale_library(self, tmp_path, monkeypatch):
+        """_load always runs make: a library older than recordio.cpp is
+        rebuilt from the source, never loaded as it is."""
+        from tamcmc_tpu.io import native
+        src = pathlib.Path(native.__file__).resolve().parents[2] / "native"
+        for f in ("Makefile", "recordio.cpp"):
+            shutil.copy(src / f, tmp_path / f)
+        lib = tmp_path / "librecordio.so"
+        monkeypatch.setattr(native, "_NATIVE_DIR", tmp_path)
+        monkeypatch.setattr(native, "_LIB_PATH", lib)
+
+        def load():
+            monkeypatch.setattr(native, "_lib", None)
+            monkeypatch.setattr(native, "_tried", False)
+            return native._load()
+
+        assert load() is not None
+        first = lib.stat().st_mtime_ns
+        # the source is edited after that build: the next load rebuilds
+        later = first + 5_000_000_000
+        os.utime(tmp_path / "recordio.cpp", ns=(later, later))
+        assert load() is not None
+        assert lib.stat().st_mtime_ns > first

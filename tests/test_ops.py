@@ -471,7 +471,7 @@ class TestPiecesInvariantCheck:
 
 class TestBf16ProfileStream:
     """The bf16 Lorentzian profile stream (tamcmc run --precision bf16;
-    +22% measured on TPU v5e): values within bf16 quantisation of f32,
+    f32 accumulation): values within bf16 quantisation of f32,
     gradients finite and close, f32 restored after."""
 
     def _setup_case(self):

@@ -14,6 +14,7 @@ on analytic/iid/own-export cases.  Here it judges:
 """
 import json
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from tamcmc_tpu.sampler.driver import PhasePlan
 from tamcmc_tpu.diagnostics.compare import compare_posteriors
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "config1_posterior.json"
+sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "tools"))
 
 
 def _fit(demo, seed, plan, T, C, **demo_kw):
@@ -103,37 +105,39 @@ class TestGoldenFlagship:
 
     @pytest.mark.parametrize("precision", ["f32", "bf16"])
     def test_flagship_matches_golden(self, precision, tmp_path):
-        import sys as _sys
-        _sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "tools"))
-        from golden_flagship import run_fit
-        from tamcmc_tpu.diagnostics.ess import effective_sample_size
+        from golden_flagship import check
 
-        g = json.load(open(GOLDEN_FLAGSHIP))[precision]
-        out = tmp_path / f"fit_{precision}.npz"
-        run_fit(precision,
-                dict(burnin=300, learning=1000, acquire=3000, thin=4,
-                     chunk=250), seed=7, out=str(out), platform="cpu")
-        z = np.load(out, allow_pickle=True)
-        th = z["theta"]
-        names = [str(n) for n in z["names"]]
-        flat = th.reshape(-1, th.shape[-1])
-        bad = []
-        for i, name in enumerate(g["names"]):
-            j = names.index(name)
-            ess = max(effective_sample_size(th[:, :, j]), 2.0)
-            se = np.sqrt(flat[:, j].std(ddof=1) ** 2 / ess
-                         + g["std"][i] ** 2 / g["ess"][i])
-            zstat = abs(flat[:, j].mean() - g["mean"][i]) / max(se, 1e-300)
-            # the std comparison must also be ESS-aware: Var[s]/s^2 ~
-            # 1/(2*ESS) per side, so the log-ratio band is +-4 combined
-            # sigmas (a fixed 1.6x band false-failed on golden params with
-            # ESS~10 before the anchor was strengthened)
-            ratio = flat[:, j].std(ddof=1) / max(g["std"][i], 1e-300)
-            band = np.exp(4.0 * np.sqrt(1 / (2 * ess)
-                                        + 1 / (2 * g["ess"][i])))
-            band = max(band, 1.3)      # floor: never tighter than +-30%
-            if zstat >= 4.0 or not (1 / band < ratio < band):
-                bad.append((name, round(zstat, 2), round(ratio, 2),
-                            round(band, 2)))
-        # ~26 params at z~4: allow 1 marginal (multiple testing), no more
-        assert len(bad) <= 1, bad
+        passed, bad, ran_on = check(precision,
+                                    str(tmp_path / f"fit_{precision}.npz"),
+                                    platform="cpu")
+        assert ran_on == "cpu"
+        assert passed, bad
+
+
+class TestGoldenCheck:
+    """The golden_flagship z-test itself (shared by the slow test and the
+    chip smoke), on synthetic posteriors drawn from the golden moments."""
+
+    def _fit(self, tmp_path, shift_sigmas=0.0):
+        g = json.load(open(GOLDEN_FLAGSHIP))["f32"]
+        rng = np.random.default_rng(3)
+        E, C = 2000, 4
+        mean, std = np.asarray(g["mean"]), np.asarray(g["std"])
+        th = mean + std * rng.standard_normal((E, C, mean.size))
+        th += shift_sigmas * std
+        out = tmp_path / "fit.npz"
+        np.savez(out, theta=th, ess=np.full(mean.size, float(E * C)),
+                 names=np.asarray(g["names"]), truth=np.asarray(g["truth"]),
+                 platform="cpu")
+        return out
+
+    def test_fit_from_the_golden_moments_passes(self, tmp_path):
+        from golden_flagship import MAX_BAD, compare_to_golden
+        rows = compare_to_golden(self._fit(tmp_path), "f32")
+        assert sum(not r["ok"] for r in rows) <= MAX_BAD, rows
+
+    def test_shifted_fit_fails(self, tmp_path):
+        from golden_flagship import MAX_BAD, compare_to_golden
+        rows = compare_to_golden(self._fit(tmp_path, shift_sigmas=1.0),
+                                 "f32")
+        assert sum(not r["ok"] for r in rows) > MAX_BAD

@@ -1,6 +1,6 @@
 """CI guard on the multi-process throughput shape (round-5 measurement).
 
-tools/scale_procs.py measured the DCN-analog ratio (same mesh work, two
+tools/scale_procs.py measured the cross-process ratio (same mesh work, two
 gloo-connected processes vs one) at 0.79-0.80 for the default GSPMD
 runner.  This slow test keeps the capability from silently regressing:
 one layout, one runner, and a CONSERVATIVE floor — the ratio on a loaded

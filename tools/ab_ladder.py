@@ -12,7 +12,7 @@ chip runs:
     TAMCMC_AB_NGRID / TAMCMC_AB_ORDERS / TAMCMC_AB_PLAN=b,l,a,thin
 
 Usage: python tools/ab_ladder.py  -> one JSON line per (config, arm).
-Record: BASELINE.md "Round 5" ladder table.
+Record results in PERF.md, with the device they ran on.
 """
 import json
 import os
@@ -21,9 +21,8 @@ import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from tamcmc_tpu.utils.cache import enable_compile_cache, ensure_cpu_fallback
+from tamcmc_tpu.utils.cache import enable_compile_cache
 enable_compile_cache()
-ensure_cpu_fallback()
 
 import numpy as np
 import jax
@@ -65,7 +64,7 @@ def fit(demo, demo_kw, plan, T, C, adaptive):
     t0 = time.time()
     state, outs = run_phase(problem, hp, betas, state, sub, a,
                             adapt=False, thin=thin, chunk=100, ladder=ladder)
-    float(np.asarray(state.logL)[0, 0])        # fetch-sync (tunnel lesson)
+    jax.block_until_ready(state.theta)
     dt = time.time() - t0
     th = outs["theta0"]
     ess = np.asarray([effective_sample_size(th[:, :, i])

@@ -13,12 +13,15 @@ breakage a statistical regression can catch.  This tool:
              moments + ESS + provenance to tests/golden/flagship_posterior
              .json.  Each precision runs in a subprocess (the profile
              precision is latched at first trace).
-  fit        one moderate-length fit at a given precision, posterior saved
-             to an npz — the subprocess body the slow regression test
-             (tests/test_parity_harness.py::TestGoldenFlagship) launches.
+  check      one moderate-length fit at a given precision (a subprocess,
+             on the default device unless a platform is named) judged
+             against the golden by an ESS-aware z-test — shared by the slow
+             regression test (tests/test_parity_harness.py
+             ::TestGoldenFlagship, on the CPU) and `chip_smoke.py` (on the
+             GPU).
 
-The anchor test mirrors TestGoldenConfig1's ESS-aware z-test: a sampler or
-kernel change that shifts the flagship's stationary distribution fails CI
+The anchor mirrors TestGoldenConfig1's ESS-aware z-test: a sampler or
+kernel change that shifts the flagship's stationary distribution fails
 before it can shift science results.
 """
 import json
@@ -26,21 +29,31 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "flagship_posterior.json"
 
 DEMO_KW = {"ngrid": 6000, "n_orders": 4}
 T, C = 4, 16
+# the moderate-length fit that is judged against the golden
+CHECK_PLAN = dict(burnin=300, learning=1000, acquire=3000, thin=4, chunk=250)
+CHECK_SEED = 7
+# |z| of each parameter's mean difference must stay below Z_MAX, and its
+# std ratio inside an ESS-aware band; with ~26 parameters tested, MAX_BAD
+# marginal failures are allowed for multiple testing
+Z_MAX, MAX_BAD = 4.0, 1
 
 FIT_SNIPPET = """
-import os, sys, numpy as np
+import sys, numpy as np
 sys.path.insert(0, {root!r})
-from tamcmc_tpu.utils.cache import enable_compile_cache, ensure_cpu_fallback
-enable_compile_cache(); ensure_cpu_fallback()
+from tamcmc_tpu.utils.backend import request_gpu_unless_told
+from tamcmc_tpu.utils.cache import enable_compile_cache
+request_gpu_unless_told()
+enable_compile_cache()
 import jax
-if os.environ.get("GOLDEN_PLATFORM") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
 if {precision!r} == "bf16":
     from tamcmc_tpu.ops.lorentzian import set_profile_precision
     set_profile_precision("bf16")
@@ -61,14 +74,17 @@ ess = np.asarray([effective_sample_size(th[:, :, i])
                   for i in range(th.shape[-1])])
 np.savez({out!r}, theta=th, ess=ess,
          names=np.asarray(problem.free_names),
-         truth=np.asarray(meta["truth"])[np.asarray(problem.priors.free_mask)])
+         truth=np.asarray(meta["truth"])[np.asarray(problem.priors.free_mask)],
+         platform=jax.default_backend())
 """
 
 
 def run_fit(precision, plan_kw, seed, out, platform=None):
+    """One fit in a subprocess (the profile precision latches at first
+    trace).  platform: JAX_PLATFORMS for the child (e.g. "cpu"); None
+    keeps the default device."""
     env = dict(os.environ)
     if platform:
-        env["GOLDEN_PLATFORM"] = platform
         env["JAX_PLATFORMS"] = platform
     code = FIT_SNIPPET.format(root=str(ROOT), precision=precision,
                               demo_kw=DEMO_KW, plan_kw=plan_kw, T=T, C=C,
@@ -77,8 +93,48 @@ def run_fit(precision, plan_kw, seed, out, platform=None):
                    timeout=3600)
 
 
+def compare_to_golden(fit_npz, precision, golden=GOLDEN):
+    """ESS-aware comparison of a fit's posterior with the golden moments.
+
+    Per parameter: z = |mean - golden mean| / sqrt(s^2/ESS + s_g^2/ESS_g),
+    and the std ratio inside exp(+-4 combined sigmas of log s), since
+    Var[s]/s^2 ~ 1/(2 ESS) per side (floored at +-30%: a fixed 1.6x band
+    false-failed on parameters with ESS ~10).  Moments in float64: f32
+    accumulation over ~10^5 rows biases means by posterior sigmas.
+    Returns one dict per golden parameter, with "ok"."""
+    g = json.load(open(golden))[precision]
+    z = np.load(fit_npz, allow_pickle=True)
+    th = z["theta"].astype(np.float64)
+    names = [str(n) for n in z["names"]]
+    flat = th.reshape(-1, th.shape[-1])
+    rows = []
+    for i, name in enumerate(g["names"]):
+        j = names.index(name)
+        ess = max(float(z["ess"][j]), 2.0)
+        std = flat[:, j].std(ddof=1)
+        se = np.sqrt(std ** 2 / ess + g["std"][i] ** 2 / g["ess"][i])
+        zstat = abs(flat[:, j].mean() - g["mean"][i]) / max(se, 1e-300)
+        ratio = std / max(g["std"][i], 1e-300)
+        band = max(np.exp(4.0 * np.sqrt(1 / (2 * ess)
+                                        + 1 / (2 * g["ess"][i]))), 1.3)
+        rows.append({"name": name, "z": round(float(zstat), 2),
+                     "std_ratio": round(float(ratio), 3),
+                     "band": round(float(band), 3),
+                     "ok": bool(zstat < Z_MAX and 1 / band < ratio < band)})
+    return rows
+
+
+def check(precision, out, platform=None):
+    """Run the moderate-length fit and judge it against the golden.
+    Returns (passed, failing rows, platform the fit ran on)."""
+    run_fit(precision, CHECK_PLAN, seed=CHECK_SEED, out=out,
+            platform=platform)
+    bad = [r for r in compare_to_golden(out, precision) if not r["ok"]]
+    ran_on = str(np.load(out)["platform"])
+    return len(bad) <= MAX_BAD, bad, ran_on
+
+
 def generate():
-    import numpy as np
     plan_kw = dict(burnin=500, learning=3000, acquire=24000, thin=4,
                    chunk=500)
     doc = {"provenance": {
@@ -90,10 +146,11 @@ def generate():
                  "generate if the sampler's STATISTICAL behaviour "
                  "legitimately changes")}}
     for precision in ("f32", "bf16"):
-        out = f"/tmp/golden_flagship_{precision}.npz"
         print(f"generating {precision} golden (long run)...", flush=True)
-        run_fit(precision, plan_kw, seed=0, out=out)
-        z = np.load(out, allow_pickle=True)
+        with tempfile.TemporaryDirectory() as td:
+            out = os.path.join(td, f"golden_flagship_{precision}.npz")
+            run_fit(precision, plan_kw, seed=0, out=out)
+            z = dict(np.load(out, allow_pickle=True))
         # f64 BEFORE the axis-0 reductions: f32 accumulation over the
         # 96000-row flat array biased frequency means by ~1.7 uHz (2
         # posterior sigma) and inflated stds 2.2x in this golden's first

@@ -1,4 +1,4 @@
-"""Multi-PROCESS sharding overhead: the DCN-analog ratio (round-4 VERDICT #1).
+"""Multi-PROCESS sharding overhead: the cross-process ratio (round-4 VERDICT #1).
 
 The fake-mesh tables (tools/scale_cpu.py) measure sharded-vs-local inside ONE
 process; the two-process gloo harness (tests/test_distributed.py) proves
@@ -6,7 +6,7 @@ cross-process *correctness*.  The missing scaling number — the last one this
 single-chip sandbox can produce — is the THROUGHPUT cost of the process
 boundary itself: the same total work, on the same 8-device mesh with the
 same layouts, run once inside a single OS process and once spanning two
-processes with gloo collectives standing in for DCN.
+processes with gloo collectives standing in for the inter-host network.
 
     ratio = steps/s(2 processes, 4 fake devices each)
           / steps/s(1 process, 8 fake devices)
@@ -15,8 +15,8 @@ Both denominators timeshare the same physical cores (8 device threads on
 this host either way), so the ratio isolates the cross-process collective
 path — serialization, gloo transport, coordination — not raw compute.  This
 is overhead-SHAPE evidence for the >=80 % multi-host north star (SURVEY
-section 6, BASELINE.md "Target scaling"); proving the target itself still
-needs a real pod.
+section 6); proving the target itself still needs real multi-host
+hardware.
 
 Layouts: 8x1 (temp fully sharded — every tempering swap crosses the process
 boundary), 2x4 (walker-heavy — adaptation pmeans cross it every step).
@@ -38,8 +38,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 T, C = 8, 8
 THIN, EMIT, REPS = 5, 20, 3
 # SCALE_LAYOUTS / SCALE_RUNNERS trim the matrix (the slow-suite guard
-# runs one combo to stay inside its budget; the full default matrix is
-# the BASELINE.md round-5 record)
+# runs one combo to stay inside its budget)
 LAYOUTS = tuple(tuple(int(v) for v in x.split("x")) for x in
                 os.environ.get("SCALE_LAYOUTS", "8x1,2x4").split(","))
 RUNNERS = tuple(os.environ.get("SCALE_RUNNERS", "gspmd,shardmap").split(","))
@@ -58,7 +57,6 @@ def worker():
     from tamcmc_tpu.utils.cache import enable_compile_cache
     enable_compile_cache()
     import jax
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
     from tamcmc_tpu.parallel.distributed import (init_distributed,
                                                  make_global_sampler_mesh)

@@ -21,8 +21,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIT_SNIPPET = """
 import sys, numpy as np
 sys.path.insert(0, {root!r})
-from tamcmc_tpu.utils.cache import enable_compile_cache, ensure_cpu_fallback
-enable_compile_cache(); ensure_cpu_fallback()
+from tamcmc_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 import jax
 from tamcmc_tpu.demos import make_demo
 from tamcmc_tpu.sampler import init_state, make_beta_ladder, run_phases

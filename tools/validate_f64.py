@@ -1,7 +1,7 @@
 """f64 validation anchor: f32 contract vs double-precision sampling.
 
 The reference samples in f64 (SURVEY.md section 0 — C++/Eigen doubles
-throughout [U]); this rebuild's contract is f32 (TPU-native) with a
+throughout [U]); this rebuild's contract is f32 with a
 documented u-space standardization making that safe (docs/PARITY.md
 documents the config-4 f32 adaptation collapse that motivated it).  The
 round-4 VERDICT (missing #3) asked for the missing anchor: fit BASELINE
@@ -12,8 +12,8 @@ f32/u-space design against subtle precision bias; any inconsistency must
 be investigated, not thresholded away.
 
 Both sides run on CPU so the ONLY difference is arithmetic precision
-(the f32 side is statistically the TPU contract; PRNG streams are
-identical bit-generators either way).
+(the f32 side is statistically the accelerator contract; PRNG streams
+are identical bit-generators either way).
 
 Usage: python tools/validate_f64.py   -> one JSON line per config + verdict.
 Record of results: docs/PARITY.md "f64 validation anchor".
@@ -30,10 +30,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIT_SNIPPET = """
 import os, sys, numpy as np
 sys.path.insert(0, {root!r})
-from tamcmc_tpu.utils.cache import enable_compile_cache, ensure_cpu_fallback
-enable_compile_cache(); ensure_cpu_fallback()
+from tamcmc_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 import jax
-jax.config.update("jax_platforms", "cpu")
 f64 = os.environ.get("TAMCMC_VALIDATE_F64") == "1"
 import jax.numpy as jnp
 from tamcmc_tpu.demos import make_demo
